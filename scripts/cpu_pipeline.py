@@ -49,7 +49,7 @@ def _window_global(locals_, mats, lo, hi):
 def _close_loop_slerp(locals_, mats, first, last, edges, max_dist2,
                       icp_iters, upto=None):
     """CPU mirror of models.elch.close_loop (elch6Dslerp.cc:93-190);
-    distribution is limited to the prefix [1, upto] like the TPU
+    distribution is limited to the prefix [1, upto] like the JAX
     driver's scans[:upto+1] slice."""
     n = (upto + 1) if upto is not None else len(mats)
     pts_g = [l @ M[:3, :3].T + M[:3, 3] for l, M in zip(locals_, mats)]

@@ -4,7 +4,7 @@ tests/test_distributed.py, one process per simulated host).
 Exercises the documented launch recipe from parallel/distributed.py:
 JAX_COORDINATOR / NPROC / PROC_ID env vars -> dist.initialize() ->
 host_device_mesh -> link-sharded LUM with the G/B psum crossing the
-process boundary (DCN path).  Process 0 writes the relaxed poses to the
+process boundary (cross-host path).  Process 0 writes the relaxed poses to the
 output file for the parent to compare against a single-process run.
 """
 

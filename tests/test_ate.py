@@ -1,10 +1,10 @@
-"""Accuracy oracle tests (BASELINE.md step 2, VERDICT item 2).
+"""Accuracy oracle tests (BASELINE.md step 2).
 
 The golden trajectories in tests/golden/ were produced by
 scripts/make_golden.py — an independent f64 CPU implementation of the
 reference pipeline (scipy cKDTree NN + Horn quaternion ICP + f64 LUM,
 the math of src/slam6d/icp6D.cc:104-285 and src/slam6d/lum6Deuler.cc),
-run to tight convergence.  These tests run the TPU pipeline on the same
+run to tight convergence.  These tests run the JAX pipeline on the same
 inputs and assert the absolute trajectory error (the metric of
 src/slam6d/match_with_ground_truth.cc) stays within bounds.
 """
@@ -72,7 +72,7 @@ def test_ate_dat(dat_dir, tmp_path):
     out = str(tmp_path / "frames")
     run_dat_pipeline(dat_dir, out)
     res = ate(out, os.path.join(GOLDEN, "dat"), align=False)
-    # f32 TPU pipeline vs f64 oracle on a ~3 m trajectory: poses must
+    # f32 JAX pipeline vs f64 oracle on a ~3 m trajectory: poses must
     # agree to a few cm (the oracle itself is converged to < 1 mm).
     assert res["rmse"] < 5.0, res
     assert res["max"] < 8.0, res

@@ -1,5 +1,5 @@
 """Equivalence of the device-resident segmented GraphPipeline with the
-per-match host loop (VERDICT r4 next-step #1): same poses, same frames
+per-match host loop: same poses, same frames
 records, same loop closures — the segmented driver only changes WHERE
 the sequential loop and the loop detector (slam6D.cc:479-489) run, not
 what they compute.

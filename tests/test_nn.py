@@ -203,8 +203,7 @@ def test_cell_hash_occupancy_check(rng):
 def test_brute_line_large_extent_precision(rng):
     """Normal-shoot NN on a large-extent cloud (bremen-scale offsets):
     the centered expansion + exact winner recompute must rank correctly
-    where the naive |q|²+|m|²−2q·m form loses ~eps·|coord|² (VERDICT r2
-    weak item 6)."""
+    where the naive |q|²+|m|²−2q·m form loses ~eps·|coord|²."""
     import jax.numpy as jnp
     import numpy as np
 

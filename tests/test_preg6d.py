@@ -1,6 +1,5 @@
 """preg6d plane-based registration tests (ref src/preg6d/planereg.cc:2,
-opt/gaussnewton.cc, opt/adadelta6d.cc, match/planematcher.cc) —
-VERDICT r3 item 8: a synthetic multi-plane scene registered by planes
+opt/gaussnewton.cc, opt/adadelta6d.cc, match/planematcher.cc): a synthetic multi-plane scene registered by planes
 alone (no NN ICP) against ground truth."""
 
 import numpy as np

@@ -51,6 +51,34 @@ def test_sequence_registration_converges(rng):
         assert err < 2.0, f"scan {s.identifier}: {err}"
 
 
+@pytest.mark.parametrize("metascan", [False, True])
+def test_mesh_opt_in_matches_single_device(rng, metascan):
+    """Sharding is opt-in: the default runs on one device, and
+    mesh="auto" (every local device, pair statistics psum-merged) lands
+    on the same poses."""
+    import jax
+
+    assert SequenceRegistration()._resolve_mesh() is None
+    sharded = SequenceRegistration(mesh="auto")._resolve_mesh()
+    assert sharded.devices.size == len(jax.devices()) > 1
+    scans, _ = _make_sequence(rng)
+    copies = [
+        TPUScan.from_points(s.xyz, s.identifier, s.transMatOrg)
+        for s in scans
+    ]
+    for c in copies:
+        c.set_reduction(10.0, 1)
+    params = IcpParams(max_dist_match2=625.0, max_iterations=60, epsilon=1e-7)
+    SequenceRegistration(params=params, metascan=metascan).run(scans)
+    SequenceRegistration(
+        params=params, metascan=metascan, mesh="auto"
+    ).run(copies)
+    for a, b in zip(scans, copies):
+        np.testing.assert_allclose(
+            a.transMat[:3, 3], b.transMat[:3, 3], atol=1e-2
+        )
+
+
 def test_metascan_mode(rng):
     scans, true_poses = _make_sequence(rng)
     reg = SequenceRegistration(

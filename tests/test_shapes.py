@@ -111,8 +111,8 @@ def test_planes_cli_with_config(tmp_path, rng):
         [sys.executable, "-m", "tpu3dtk.cli.planes", str(tmp_path),
          "-C", str(tmp_path / "hough.cfg"), "-o", str(out)],
         capture_output=True, text=True, timeout=300,
-        env={**os.environ, "TPU3DTK_PLATFORM": "cpu",
-             "TPU3DTK_XLA_CACHE": ""},
+        env={**os.environ, "JAX_PLATFORMS": "cpu",
+             "JAX_ENABLE_COMPILATION_CACHE": "false"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
     assert (out / "planes.list").exists()

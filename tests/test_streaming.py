@@ -96,8 +96,8 @@ def test_streaming_cli_cache_mb(scan_dir, tmp_path_factory):
          "-d", "50", "-i", "20", "--cache-mb", "1",
          "--frames-out", str(out), str(tmp_path)],
         capture_output=True, text=True, timeout=600,
-        env={**os.environ, "TPU3DTK_PLATFORM": "cpu",
-             "TPU3DTK_XLA_CACHE": ""},
+        env={**os.environ, "JAX_PLATFORMS": "cpu",
+             "JAX_ENABLE_COMPILATION_CACHE": "false"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
     assert (out / "scan023.frames").exists()

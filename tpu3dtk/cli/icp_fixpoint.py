@@ -1,14 +1,13 @@
 """``tpuicpfixpoint`` — reduced-precision ICP driver, counterpart of
 the reference ``bin/icpFixpoint`` (src/slam6d/icpFixpoint.cc):
 sequential matching through the quantized datapath
-(models.sc_fixed: bf16 MXU ranking, 10^-exp epsilon) with a
+(models.sc_fixed: bf16 ranking, 10^-exp epsilon) with a
 per-scan comparison against the exact-f32 pipeline.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import numpy as np
@@ -43,11 +42,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    plat = os.environ.get("TPU3DTK_PLATFORM")
-    if plat:
-        import jax
-
-        jax.config.update("jax_platforms", plat)
 
     import jax.numpy as jnp
 

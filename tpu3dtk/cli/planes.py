@@ -40,11 +40,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    plat = os.environ.get("TPU3DTK_PLATFORM")
-    if plat:
-        import jax
-
-        jax.config.update("jax_platforms", plat)
 
     from ..core.scan import TPUScan
     from ..io.scandir import PointFilter, read_scan_dir

@@ -41,11 +41,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    plat = os.environ.get("TPU3DTK_PLATFORM")
-    if plat:
-        import jax
-
-        jax.config.update("jax_platforms", plat)
 
     from ..core import math3d
     from ..core.scan import TPUScan

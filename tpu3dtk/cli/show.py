@@ -2,8 +2,8 @@
 ``show`` binary (src/show/show_common.cc:678 display pipeline,
 src/show/program_options.cc flag surface).
 
-The reference opens a GL window; this renders PNGs (no GUI/GL in the
-TPU stack) with the same inputs and semantics:
+The reference opens a GL window; this renders PNGs (no GUI/GL on a
+compute accelerator) with the same inputs and semantics:
 
 - loads scans + their ``.frames`` pose logs (registration replay),
 - applies the selected frame (default: final pose, like show),
@@ -128,11 +128,6 @@ def world_points(clouds, histories, frameno: int):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    plat = os.environ.get("TPU3DTK_PLATFORM")
-    if plat:
-        import jax
-
-        jax.config.update("jax_platforms", plat)
     from ..io.png import write_png
     from ..ops import render
 

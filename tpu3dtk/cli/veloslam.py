@@ -5,7 +5,6 @@ window matching, writes .frames like slam6D)."""
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import numpy as np
@@ -38,11 +37,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    plat = os.environ.get("TPU3DTK_PLATFORM")
-    if plat:
-        import jax
-
-        jax.config.update("jax_platforms", plat)
 
     from ..core.scan import TPUScan
     from ..io import frames as frames_io

@@ -1,7 +1,7 @@
-"""Scan abstraction — the TPU-native ``Scan``/``BasicScan``
+"""Scan abstraction — the JAX-native ``Scan``/``BasicScan``
 (ref include/slam6d/scan.h:124-531, src/slam6d/scan.cc, basicScan.cc).
 
-Differences by design (TPU-first, not a port):
+Differences by design (batched, not a port):
 
 - Points are immutable.  The reference mutates ``xyz reduced`` in place
   on every ``transform`` (scan.cc:851-873); here reduced points stay in

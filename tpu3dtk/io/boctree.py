@@ -24,7 +24,7 @@ half-size is max extent/2 + 1.0 (Boctree.h:249-255).
 This is deliberately a HOST-side codec (pure numpy + struct): it exists
 for interop — reference ``show`` can load our caches and we can ingest
 octrees the reference toolchain produced — not for the compute path
-(ops.octree holds the TPU-native sorted-Morton design).
+(ops.octree holds the JAX-native sorted-Morton design).
 """
 
 from __future__ import annotations

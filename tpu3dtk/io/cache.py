@@ -1,9 +1,9 @@
-"""Host-side scan prefetch & cache — the TPU-era replacement for the
+"""Host-side scan prefetch & cache — the batched replacement for the
 reference's scanserver (SURVEY §2.3: a shared-memory daemon + LRU
 CacheManager feeding out-of-core scans to clients,
 src/scanserver/serverInterface.cc, cache/cacheManager.cc:79-113).
 
-On a TPU host the data plane is simpler and faster: a bounded
+On an accelerator host the data plane is simpler and faster: a bounded
 thread-pool pipeline reads and parses scans *ahead* of the registration
 loop (text parse is the bottleneck, it overlaps with device compute),
 and a byte-budgeted LRU keeps recently used scans resident, evicting

@@ -1,10 +1,10 @@
-"""Interior building model — the TPU-native ``model`` module core
+"""Interior building model — the JAX-native ``model`` module core
 (ref src/model/: plane3d/labeledPlane3d label detected planes as
 walls/floor/ceiling, candidateOpening.cc finds door/window openings as
 empty regions in each wall's occupancy image, model.cc assembles the
 cleaned model).
 
-TPU design: plane labeling is a vectorized normal test; each wall's
+Batched design: plane labeling is a vectorized normal test; each wall's
 occupancy image is one 2D histogram of its inliers in plane
 coordinates; opening detection is connected-component analysis of the
 interior empty mask with rectangle fits and the reference's

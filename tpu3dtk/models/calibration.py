@@ -1,9 +1,9 @@
-"""Camera calibration — the TPU-native ``calibration`` module core
+"""Camera calibration — the JAX-native ``calibration`` module core
 (ref src/calibration/CalibrationToolbox.cc / Calibrator.cc: estimate
 camera intrinsics + extrinsics from 3D↔2D pattern correspondences;
 the reference wraps OpenCV's calibrateCamera and pattern detectors).
 
-TPU design: the optimization core is re-expressed as autodiff — DLT
+Batched design: the optimization core is re-expressed as autodiff — DLT
 initialization (closed-form) followed by Levenberg-Marquardt on the
 reprojection error with ``jax.grad``-derived Jacobians, batched over
 all observations.  Pattern DETECTORS (AprilTag/Aruco/CCTag/chessboard,
@@ -179,7 +179,7 @@ def calibrate_camera(
 # also bundles AprilTag/CCTag detectors in 3rdparty)
 # ---------------------------------------------------------------------------
 #
-# TPU/numpy redesign: inner corners of a chessboard are maxima of the
+# Array redesign: inner corners of a chessboard are maxima of the
 # checker response |(A+D)-(B+C)| of the four quadrant means around each
 # pixel — one separable box-filter pass over the whole image instead of
 # OpenCV's adaptive-threshold + quad assembly.  Grid ORDERING runs

@@ -3,7 +3,7 @@ environment cloud (ref src/collision/collision_model.cc: per trajectory
 pose, count environment points within a collision radius of the moved
 model; kd-tree or CUDA grid backend; SURVEY §2.6).
 
-TPU design: a batched job — poses [P, 4, 4] x model [M, 3] against the
+Batched design: a batched job — poses [P, 4, 4] x model [M, 3] against the
 environment via the same NN machinery; for each pose the model is
 transformed and every model point's nearest environment distance is
 thresholded.  vmap over poses, lax.map chunks to bound memory.

@@ -1,10 +1,10 @@
-"""Trajectory curve fusion — the TPU-native ``curvefusion`` module
+"""Trajectory curve fusion — the JAX-native ``curvefusion`` module
 (ref src/curvefusion/: curves.cc pairs a laser/odometry trajectory with
 a GPS/ground-truth trajectory per timestamp, fusion.cc aligns and
 blends them into one consistent curve via per-segment Eigen SVD
 alignments).
 
-TPU design: timestamp association is a vectorized interval lookup;
+Batched design: timestamp association is a vectorized interval lookup;
 per-segment rigid alignments run as ONE batched Horn solve over all
 sliding windows (the minimizer pair-statistics kernel vmapped over
 segments), and the fused curve blends the segment-aligned positions

@@ -1,4 +1,4 @@
-"""Cylinder detection — the TPU-native ``detectCylinder`` module
+"""Cylinder detection — the JAX-native ``detectCylinder`` module
 (ref src/detectCylinder/: Hough axis detection over the normal sphere +
 circle estimation in the projected plane; SURVEY §2.6).
 

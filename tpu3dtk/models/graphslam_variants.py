@@ -5,7 +5,7 @@ small-angle (``gapx6D``, ref src/slam6d/gapx6D.cc:76-545) — the
 reference's ``-G 2/3/4`` modes next to the Euler LUM in
 ``models/graphslam`` (``-G 1``).
 
-TPU-first design: all four parametrizations are linear(ized)
+Batched design: all four parametrizations are linear(ized)
 least-squares over the same point-pair set, so every per-link quantity
 any of them needs is derivable from six raw sums per link:
 
@@ -123,7 +123,7 @@ def _collect_raw(scans: list[TPUScan], links, params: LumParams):
     With pinned ``device_points`` (GraphPipeline prefixes) the call is
     shape-stable: resident [S, cap] tensors + bucketed link slots, so
     repeated closures reuse one executable (the ELCH shape discipline,
-    VERDICT r3 item 4, applied to the quat/unitquat variants too)."""
+    applied to the quat/unitquat variants too)."""
     E = len(links)
     if params.device_points is not None:
         locals_j, masks_j = params.device_points

@@ -1,4 +1,4 @@
-"""2D occupancy grids from registered scans — the TPU-native ``grid``
+"""2D occupancy grids from registered scans — the JAX-native ``grid``
 module (ref src/grid/2DGridder.cc + scanGrid/parcel machinery,
 SURVEY §2.6: project scans to 2D occupancy maps with free-space
 counting along rays).
@@ -173,7 +173,7 @@ def extract_gridlines(
     """Line segments from an occupancy grid — the ``gridlines`` tool
     (ref src/grid/gridlines.cc: Hough transform over solid cells, then
     segment extraction).  One [N_cells, n_theta] matmul computes every
-    cell's rho against every direction (the same MXU Hough pattern as
+    cell's rho against every direction (the same matmul Hough pattern as
     models.shapes).  Returns [(p0 [2], p1 [2])] world-coordinate
     segments with length >= min_length cells."""
     import jax.numpy as jnp

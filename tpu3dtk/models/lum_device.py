@@ -4,10 +4,9 @@ The reference's ``doGraphSlam6D`` (src/slam6d/lum6Deuler.cc:314-477)
 iterates: per-link covariance assembly (FillGB3D, lum6Deuler.cc:265-303)
 → sparse Cholesky solve (graphSlam6D.cc:345-366) → per-scan pose update
 via Ha⁻¹X (lum6Deuler.cc:375-455) — all in-process with zero dispatch
-overhead.  The round-2 TPU driver replicated the math but paid ~250 ms
-of host dispatch per iteration (eager vmapped transforms, per-iteration
-uploads/downloads, host solve): 50 iterations cost 12.7 s while the
-covariance kernel itself runs in ~1 ms.
+overhead.  A host-driven loop of the same math pays a dispatch, an
+upload and a download per iteration (eager vmapped transforms, host
+solve), which at LUM's small per-iteration work dominates.
 
 This module keeps the ENTIRE relaxation on device inside one jitted
 ``lax.while_loop``:
@@ -18,10 +17,7 @@ This module keeps the ENTIRE relaxation on device inside one jitted
      once per relaxation (outside this jit) and enters as a program
      parameter; each iteration transforms scan j's points by
      T_i⁻¹·T_j and queries — distances are rigid-invariant, so the
-     semantics equal the reference's global-frame getPtPairs.  (The
-     parameter requirement is load-bearing: an internally-built hash
-     puts XLA's candidate gather on a ~1 G elem/s serial path — a
-     measured 10,000x slowdown; see models.icp._build_grid_inline.)
+     semantics equal the reference's global-frame getPtPairs.
   3. batched link covariances (chunked lax.map, graphslam.lum_pair_stats),
   4. G/B assembly by scatter-add into [n+1, n+1, 6, 6] blocks
      (index n is the dump row for the fixed scan 0 / padded links),
@@ -164,9 +160,14 @@ def _assemble_solve(links, link_mask, C, CD, S, n_scans, axis_name=None):
 
     With ``axis_name`` (links sharded over a mesh axis inside
     shard_map), the G/B block partials are psum-merged so every device
-    solves the full system identically — the TPU re-expression of the
+    solves the full system identically — the batched re-expression of the
     reference's OpenMP critical-section scatter (lum6Deuler.cc:285).
+    The blocks accumulate in f64 and are rounded after the merge, so the
+    sharded and single-device systems round alike.
     """
+    out_dtype = C.dtype
+    C = C.astype(jnp.float64)
+    CD = CD.astype(jnp.float64)
     n = S - 1
     a = links[:, 0] - 1
     b = links[:, 1] - 1
@@ -203,7 +204,8 @@ def _assemble_solve(links, link_mask, C, CD, S, n_scans, axis_name=None):
     Gb = Gb.at[jnp.arange(n), jnp.arange(n)].add(eye6 * fix[:, None, None])
 
     G = Gb[:n, :n].transpose(0, 2, 1, 3).reshape(6 * n, 6 * n)
-    B = Bb[:n].reshape(6 * n)
+    G = G.astype(out_dtype)
+    B = Bb[:n].reshape(6 * n).astype(out_dtype)
     # Jacobi scaling: translation and rotation columns differ by the
     # squared scene extent (~1e6 in cm²); rescaling keeps the f32 solve
     # well-conditioned.

@@ -1,18 +1,18 @@
-"""Surface reconstruction from oriented points — the TPU-native
+"""Surface reconstruction from oriented points — the JAX-native
 ``mesh`` module (ref src/mesh/recon.cc: calc normals → screened
 Poisson → exportMesh .obj).
 
 Two reconstructions are provided:
 
 - :func:`reconstruct_poisson` — the reference's own algorithm
-  (screened Poisson), re-expressed for TPU as a dense spectral solve
+  (screened Poisson), re-expressed as a dense spectral solve
   (see the PoissonParams section below) instead of the octree-FEM
   multigrid of 3rdparty/poisson, whose adaptive refinement and sparse
   pointer structure XLA cannot express.
 - :func:`reconstruct_imls` — an IMLS implicit: the signed field
 f(x) = Σ w_i(x) n_i·(x − p_i) / Σ w_i with Gaussian weights over the k
 nearest samples — every grid node evaluates as one batched KNN + fused
-reductions (MXU-shaped), and the zero surface meshes through
+reductions (matmul-shaped), and the zero surface meshes through
 ops.surfacenets.  IMLS is the standard implicit-moving-least-squares
 reconstruction (Kolluri 2008 provably reconstructs under sampling
 conditions), so accuracy-wise this occupies the same slot as Poisson.
@@ -127,14 +127,14 @@ def reconstruct_imls(
 # Screened Poisson reconstruction (ref src/mesh/poisson.cc + 3rdparty/poisson)
 # ---------------------------------------------------------------------------
 #
-# The reference wraps Kazhdan's octree-FEM PoissonRecon.  The TPU-native
+# The reference wraps Kazhdan's octree-FEM PoissonRecon.  The JAX-native
 # equivalent solves the SAME PDE — find the indicator chi whose gradient
 # matches the splatted oriented-normal field V:  (laplacian - alpha) chi
 # = div V — but on a DENSE voxel grid in the spectral domain: trilinear
 # normal splat, central-difference divergence, one 3-D real FFT, a
 # pointwise division by the discrete-Laplacian symbol, and an inverse
-# FFT.  A dense FFT solve is exactly the regular, bandwidth-friendly
-# program shape TPUs want (the octree multigrid is pointer-chasing XLA
+# FFT.  A dense FFT solve is the regular, bandwidth-friendly program
+# shape accelerators want (the octree multigrid is pointer-chasing XLA
 # cannot express); at grid=256 the solve is a few hundred MB and
 # milliseconds of FFT work.  The screening term alpha anchors the DC
 # mode and pulls chi to zero away from data (Kazhdan & Hoppe 2013's

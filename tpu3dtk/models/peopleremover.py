@@ -1,9 +1,9 @@
-"""Dynamic-object removal by free-space voxel carving — the TPU-native
+"""Dynamic-object removal by free-space voxel carving — the JAX-native
 ``peopleremover`` (ref src/peopleremover/: Schauer/Nüchter change
 detection; ``walk_voxels`` ray traversal at common.cc:112, per-scan
 masks written for points whose voxel another scan saw *through*).
 
-TPU re-design: instead of a per-ray incremental voxel walk (sequential
+Batched re-design: instead of a per-ray incremental voxel walk (sequential
 CPU idiom), every ray is sampled parametrically at half-voxel steps —
 an [R, K, 3] tensor op — and the visited voxel ids are scattered into a
 per-scan boolean grid.  A per-scan bitmask grid then answers "seen

@@ -1,4 +1,4 @@
-"""Plane-based post-registration — the TPU-native ``preg6d`` module
+"""Plane-based post-registration — the JAX-native ``preg6d`` module
 (ref src/preg6d/planereg.cc:2 driver; model/planescan.cc point-to-plane
 correspondences; opt/{gaussnewton,newtons6d,adadelta6d,svd}.cc pose
 optimizers; match/planematcher.cc local↔global plane matching).
@@ -8,10 +8,10 @@ extracted planes: each point is associated to the plane it lies on
 (hesse-distance + normal-similarity gates, planescan.cc), then a 6-DoF
 optimizer minimizes the summed point-to-plane energy per scan.
 
-TPU-first design:
+Batched design:
 
 - association is ONE [N, P] matmul (every point's signed distance to
-  every plane) + masked argmin — the MXU replaces planescan.cc's
+  every plane) + masked argmin — a matmul replaces planescan.cc's
   per-point loop over planes;
 - the Gauss-Newton optimizer runs association + the closed-form 6x6
   normal-equation solve inside one ``lax.while_loop`` (zero host round
@@ -70,7 +70,7 @@ def associate_points(pts_g, mask, plane_n, plane_d, eps_hesse,
     (traceable).  Returns (plane_idx [N], dist [N], valid [N]).
 
     One [N, P] matmul against all plane normals (planescan.cc
-    correspondence search re-mapped onto the MXU)."""
+    correspondence search re-mapped onto matmuls)."""
     dist = (
         jnp.dot(pts_g, plane_n.T, preferred_element_type=jnp.float32)
         - plane_d[None, :]

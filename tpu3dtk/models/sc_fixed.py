@@ -1,10 +1,10 @@
-"""Reduced-precision ICP — the TPU-native ``sc_fixed`` module and
+"""Reduced-precision ICP — the JAX-native ``sc_fixed`` module and
 ``icpFixpoint`` driver (ref src/sc_fixed/sc_ICP.cc, sc_fixed_math.h,
 src/slam6d/icpFixpoint.cc): the reference validates ICP in fixed-point
 arithmetic for embedded/FPGA targets, with a 10^-exp epsilon
 termination (icpFixpoint.cc:142 epsilonICPexp).
 
-On TPU the native reduced-precision datapath is bfloat16 on the MXU —
+On an accelerator the native reduced-precision datapath is bfloat16 —
 the analog question ("how much cheaper can the arithmetic get before
 registration breaks?") maps to: coordinates quantized to bf16, the NN
 ranking matmul in a SINGLE bf16 pass (the exact mode the full-precision

@@ -1,9 +1,9 @@
-"""Point-cloud segmentation — the TPU-native ``segmentation`` module
+"""Point-cloud segmentation — the JAX-native ``segmentation`` module
 (ref src/segmentation/: Felzenszwalb-Huttenlocher graph segmentation,
 fhsegmentation.cc + FHGraph/disjoint-set; SURVEY §2.6).
 
 The expensive part — building the kNN graph with edge weights — runs as
-the batched TPU KNN kernel; the FH merge loop is a classic union-find
+the batched KNN kernel; the FH merge loop is a classic union-find
 over sorted edges (host, near-linear)."""
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ def region_growing_segmentation(
     """Normal-coherent region growing — the reference's RG segmentation
     (src/preg6d/model/rg.cc; the smooth-surface complement to FH).
 
-    TPU re-design: instead of seeded BFS growth, labels start unique
+    Batched re-design: instead of seeded BFS growth, labels start unique
     and iteratively propagate the MINIMUM label across KNN edges whose
     endpoints are normal-coherent (angle < angle_thresh) and close
     (dist < dist_thresh) — a vectorized connected-components flood
@@ -185,7 +185,7 @@ def region_growing_segmentation(
 # graph_cut.cc:410-540), then blob-coloring to split accepted planes
 # into spatially contiguous segments (blob_color.cc).
 #
-# TPU-first redesign: the per-pixel loops become K-offset shifted-array
+# Batched redesign: the per-pixel loops become K-offset shifted-array
 # reductions (vectorized over the whole panorama at once); the cut
 # recursion operates on flat edge arrays with scipy sparse connected
 # components.

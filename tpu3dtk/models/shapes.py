@@ -1,12 +1,12 @@
-"""Plane detection — the TPU-native shapes module (ref src/shapes/:
+"""Plane detection — the JAX-native shapes module (ref src/shapes/:
 ``Hough`` class with RHT/SHT variants over a ball accumulator,
 hough.cc:82-400; driven by ``bin/planes``, README.planes.md; used by
 preg6d plane-based registration).
 
-TPU-first design (not the reference's cell-by-cell accumulator): the
+Batched design (not the reference's cell-by-cell accumulator): the
 *standard* Hough transform is one matmul — ``rho = P @ N^T`` for all
 points against all candidate normals at once — followed by a batched
-histogram.  The [N_points, N_dirs] rho matrix rides the MXU; peak
+histogram.  The [N_points, N_dirs] rho matrix is one matmul; peak
 extraction and inlier removal run vectorized.  Iterative
 detect-remove-repeat matches the reference's Hough::deletePoints flow.
 """
@@ -57,7 +57,7 @@ def _directions(n_theta: int, n_phi: int) -> np.ndarray:
 def hough_accumulator(points, params: HoughParams):
     """Vote all points into the (direction, rho) accumulator.
 
-    Returns (acc [D, n_rho] int32, dirs [D, 3], rho_edges).  One MXU
+    Returns (acc [D, n_rho] int32, dirs [D, 3], rho_edges).  One
     matmul computes every point's rho against every direction
     (ref Hough::SHT loops point x cell; hough.cc).
     """
@@ -157,7 +157,7 @@ def detect_planes_rht(
     triples, accumulate their plane cells, extract when a cell passes
     the threshold, delete inliers, repeat).
 
-    TPU re-design: triples are sampled in BATCHES of ``batch`` — one
+    Batched re-design: triples are sampled in BATCHES of ``batch`` — one
     vectorized cross-product pass computes every triple's (normal, rho)
     and one scatter-add votes them all — instead of the reference's
     one-triple-at-a-time loop.  Extraction/refinement reuses the SHT
@@ -208,7 +208,7 @@ def detect_planes_rht(
         # canonical hemisphere (accumulator covers half sphere)
         n = jnp.where(n[:, 2:3] < 0, -n, n)
         rho = jnp.sum(n * tri[:, 0], axis=1)
-        # nearest accumulator direction: [B, D] dot on the MXU
+        # nearest accumulator direction: [B, D] dot
         sim = jnp.dot(
             n.astype(jnp.float32), dirs_j.T,
             preferred_element_type=jnp.float32,

@@ -1,4 +1,4 @@
-"""Continuous-time / semi-rigid registration ("srr") — the TPU-native
+"""Continuous-time / semi-rigid registration ("srr") — the JAX-native
 ``correction`` pipeline (ref src/srr/: continuousreg.cc:109-230,
 linescan.cc, lum6Deuler.cc(srr variant); SURVEY §2.6 srr row and §3.5).
 
@@ -19,7 +19,7 @@ carries its own pose.  Three stages, as in the reference:
    consecutive line scans; solve, update every line-scan pose.
 3. Iterate.
 
-TPU mapping: line scans are a padded [L, P, 3] tensor; window point
+Device mapping: line scans are a padded [L, P, 3] tensor; window point
 sets are batched transforms + concatenations; all link covariances come
 from the same batched kernel as GraphSLAM (models.graphslam); the
 sparse 6L solve runs on host via scipy (CXSparse's role,

@@ -1,11 +1,11 @@
-"""Subgraph registration — the TPU-native ``subgraphicp``
+"""Subgraph registration — the JAX-native ``subgraphicp``
 (ref src/slam6d/subgraphicp.cc:118-225): partition the sequence into
 fixed-size chunks, relax each chunk internally with LUM over its
 pairs graph, then treat every chunk as ONE rigid metascan and relax
 (or ICP) between the metascans — a fast, robust pre-registration step
 for srr-style correction.
 
-TPU design: chunk-internal relaxation reuses the batched on-device LUM
+Batched design: chunk-internal relaxation reuses the batched on-device LUM
 (graphslam.do_graph_slam); the metascan level runs the same machinery
 over union clouds re-reduced to keep the metascan size bounded; the
 per-member application of each metascan's correction is a host-side

@@ -1,9 +1,9 @@
-"""Thermal/color image → point-cloud mapping — the TPU-native
+"""Thermal/color image → point-cloud mapping — the JAX-native
 ``thermo`` module (ref src/thermo/thermo.cc: project laser points into
 a calibrated (thermal) camera and attach per-point temperature/color;
 caliboard.cc detects the heated calibration board in the cloud).
 
-TPU design: projection is one batched pinhole+distortion transform
+Batched design: projection is one batched pinhole+distortion transform
 (vectorized Brown-Conrady, the OpenCV model thermo.cc uses through
 ProjectPoints); image sampling is a gather; board detection reuses the
 Hough plane machinery (models.shapes) with a size gate.

@@ -6,7 +6,7 @@
 SURVEY §2.6).
 
 Pipeline per frame: segment the (ground-filtered) cloud into clusters
-(models.segmentation on the TPU KNN graph), summarize clusters as
+(models.segmentation on the batched KNN graph), summarize clusters as
 centroid+bbox measurements, associate to live trackers with Hungarian
 assignment on predicted-position distance, Kalman-update matched
 trackers, spawn/retire as needed.  Objects whose track shows net motion

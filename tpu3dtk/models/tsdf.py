@@ -1,13 +1,13 @@
-"""TSDF volume integration — the TPU-native ``tsdf`` module
+"""TSDF volume integration — the JAX-native ``tsdf`` module
 (ref src/tsdf/: SensorPolar3D projective model + TsdSpaceVDB voxel
 space driven by scan2tsdf.cc, meshed by vdb2mesh.cc).
 
-TPU re-design: the reference's VDB sparse tree + per-voxel ray casts
+Batched re-design: the reference's VDB sparse tree + per-voxel ray casts
 become a DENSE device voxel block updated by one jitted scatter per
 scan — for each measured point, K static samples along the sensor ray
 within ±truncation of the surface update (tsdf, weight) running
 averages.  Memory is bounded by the axis-aligned volume (dense is the
-TPU-friendly trade: a 256³ f32 block is 64 MB — trivial for HBM, and
+Device-friendly trade: a 256³ f32 block is 64 MB — trivial for device memory, and
 every update is a vectorized gather/scatter instead of tree walks).
 
 Meshing runs through ops.surfacenets (the vdb2mesh role).

@@ -1,10 +1,10 @@
-"""Batched k-nearest-neighbor search (TPU-native replacement for the
+"""Batched k-nearest-neighbor search (JAX-native replacement for the
 reference's ANN/kd KNN queries used by normals and feature tools;
 ref include/slam6d/kdTreeImpl.h:432 _KNNSearch, src/slam6d/normals.cc).
 
 Strategy: tiled distance matmul + jax.lax.top_k over model points.
 Exact, O(Q·M); for the point counts normals run at (reduced scans,
-~1e4-1e5) this is MXU-friendly and fast.
+~1e4-1e5) this is matmul-friendly and fast.
 """
 
 from __future__ import annotations

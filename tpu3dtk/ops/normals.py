@@ -1,4 +1,4 @@
-"""Normal estimation — TPU-native ``calculateNormalsKNN`` family
+"""Normal estimation — JAX-native ``calculateNormalsKNN`` family
 (ref src/slam6d/normals.cc:220-560, include/slam6d/normals.h:16-49).
 
 Per point: PCA over its k nearest neighbors; the normal is the
@@ -6,7 +6,7 @@ eigenvector of the smallest eigenvalue of the neighborhood covariance,
 flipped to face the viewpoint (scanner position), exactly the
 reference's orientation rule (normals.cc: flip if n·(p - rPos) > 0).
 
-TPU design: batched KNN (ops.knn), per-point 3x3 covariance by gathered
+Batched design: batched KNN (ops.knn), per-point 3x3 covariance by gathered
 segment reductions, then a *closed-form* symmetric 3x3 eigensolver
 (trigonometric Cardano + cross-product eigenvector extraction) — fully
 vectorized, no per-point QR iterations.
@@ -135,7 +135,7 @@ def estimate_normals_adaptive_knn(
     src/slam6d/normals.cc:705 region: per point, grow the neighborhood
     from kmin toward kmax until the plane fit is reliable).
 
-    TPU re-design: the candidate k values are a STATIC ladder; PCA runs
+    Batched re-design: the candidate k values are a STATIC ladder; PCA runs
     batched for every rung (one [N, kmax] KNN feeds all rungs) and each
     point keeps the smallest k whose surface variation
     lam0/(lam0+lam1+lam2) < flat_thresh — falling back to the largest k.

@@ -1,4 +1,4 @@
-"""Linear (pointer-free) octree — the TPU-era ``BOctTree``
+"""Linear (pointer-free) octree — the batched ``BOctTree``
 (ref include/slam6d/Boctree.h:78-492: compressed bitoct nodes serving as
 point-reduction engine, serializable display structure and NN search
 structure).

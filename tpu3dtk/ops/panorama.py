@@ -1,4 +1,4 @@
-"""Panorama projections of 3D scans — the TPU-native fbr ``panorama``
+"""Panorama projections of 3D scans — the JAX-native fbr ``panorama``
 /``projection`` pair (ref src/slam6d/fbr/projection.cc:552-830 forward,
 :332-460 recoverPointCloud; methods from include/slam6d/fbr/fbr_global.h:64-75).
 

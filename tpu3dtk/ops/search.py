@@ -3,8 +3,8 @@ surface (ref include/slam6d/kdTreeImpl.h:491-828: FixedRangeSearch,
 fixedRangeSearchAlongDir, AABBSearch, segmentSearch_1NearestPoint,
 segmentSearch_all), used by the shapes and collision tooling.
 
-TPU design: every query is a dense masked reduction — distance matrices
-ride the MXU (same centered-matmul precision discipline as ops.nn) and
+Batched design: every query is a dense masked reduction — distance matrices
+run as matmuls (same centered-matmul precision discipline as ops.nn) and
 variable-size result sets become capped [Q, K] top-k blocks + exact
 counts (callers grow K and re-run when count > K; the same exactness
 guard pattern as the hashed cell list's bucket_cap).

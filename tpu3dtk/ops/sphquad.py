@@ -1,10 +1,10 @@
 """Spherical quadtree — angular search/reduction over directions, the
-TPU-native ``spherical_quadtree`` module (ref src/spherical_quadtree/
+JAX-native ``spherical_quadtree`` module (ref src/spherical_quadtree/
 spherical_quadtree.cc + .py: recursive triangle subdivision of the unit
 sphere with circumcircle-pruned cone search and angularly-uniform
 reduction).
 
-TPU re-design: the recursive QuadNode tree becomes a FLAT code array —
+Batched re-design: the recursive QuadNode tree becomes a FLAT code array —
 every point's direction is assigned a level-L triangle code by L rounds
 of vectorized child tests (octahedron base, midpoint subdivision: the
 same geometry as the reference, minus the pointers), then bucketed CSR-

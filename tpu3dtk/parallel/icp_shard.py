@@ -1,7 +1,7 @@
 """Multi-device ICP: target points sharded over the ``points`` mesh
-axis, model replicated, pair statistics psum-merged over ICI.
+axis, model replicated, pair statistics psum-merged across devices.
 
-This is the TPU re-expression of the reference's parallel ICP
+This is the batched re-expression of the reference's parallel ICP
 (src/slam6d/icp6D.cc:129-222, after Langis/Greenspan/Godin "The Parallel
 Iterative Closest Point Algorithm"): per-OpenMP-thread partial
 (n, sum, centroid, Si) accumulators become per-device partials combined
@@ -43,7 +43,9 @@ def shard_target(mesh, target, tmask, axis: str = "points"):
 def _global_stats(model, mmask, tgt_global, tmask, max_dist2, axis):
     """Per-shard NN + partial sums, merged with psum (two tiny
     reductions: centroids first, then centered second moments)."""
-    idx, d2, found = nn_ops.nn_brute(tgt_global, tmask, model, mmask, max_dist2)
+    idx, d2, found = nn_ops.nn_brute_auto(
+        tgt_global, tmask, model, mmask, max_dist2
+    )
     m = model[idx]
     t = tgt_global
     w = found.astype(jnp.float32)
@@ -279,7 +281,7 @@ def icp_pair_seq_sharded(
 ) -> IcpResult:
     """Sequence-resident sharded match (models.icp.icp_pair_seq under
     shard_map): sequence tensors replicated, each device takes its
-    1/n_dev slice of the target scan, pair stats psum over ICI every
+    1/n_dev slice of the target scan, pair stats psum across devices every
     iteration.  N must be divisible by the axis size.  ``window_cap``
     bounds the model window exactly as in icp_pair_seq (without it a
     non-metascan match would pay the full-sequence O(S*N) model)."""

@@ -139,16 +139,16 @@ def lum_run_sharded(
     """The ENTIRE on-device LUM relaxation (models.lum_device.lum_run)
     under shard_map with the LINK slots sharded over ``axis``: each
     device computes covariances for its link shard, the G/B block
-    partials psum-merge over ICI, and every device runs the (tiny)
+    partials psum-merge across devices, and every device runs the (tiny)
     replicated solve + pose update — so the while_loop state stays
     bitwise identical across devices with one collective per iteration
-    (the TPU form of the reference's OpenMP scatter,
+    (the batched form of the reference's OpenMP scatter,
     lum6Deuler.cc:270-303)."""
     from ..models.lum_device import lum_run
 
     if axis is None:
         # shard links over EVERY mesh axis (a multi-host hosts x points
-        # mesh then carries the G/B psum across DCN once per iteration)
+        # mesh then carries the G/B psum across hosts once per iteration)
         axis = tuple(mesh.axis_names)
     ax = axis if isinstance(axis, tuple) else (axis,)
     n_dev = 1

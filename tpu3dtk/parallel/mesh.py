@@ -5,7 +5,7 @@ shared-memory daemon; no distributed backend).  This layer introduces
 the missing axis: JAX meshes with named axes
 
 - ``points``: correspondence batches sharded across devices; ICP pair
-  partials are psum-merged over ICI (the TPU re-expression of the
+  partials are psum-merged across devices (the batched re-expression of the
   OpenMP parallel-ICP reduction, icp6D.cc:129-222).
 - ``scans``:  independent scan pairs / graph links data-parallel across
   devices (used by GraphSLAM covariance assembly and block matching).

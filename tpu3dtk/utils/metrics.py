@@ -4,7 +4,7 @@ on_demand_reduction_time, transform_time, add_frames_time;
 include/slam6d/metrics.h:22-126, printed by src/slam6d/metrics.cc:127).
 
 Always-on (cheap), wall-clock based, with the same named-phase taxonomy
-so reference and TPU runs can be compared phase by phase.  For device
+so reference and JAX runs can be compared phase by phase.  For device
 timing use jax.profiler around the phases of interest.
 """
 
